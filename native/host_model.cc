@@ -6,7 +6,7 @@
 // ours: the per-tick model quantities computed natively on the host, so the
 // torque path performs zero accelerator dispatches and almost zero
 // interpreter work.  The math mirrors, line for line, the numpy twin in
-// bipedal_control_tpu/model/host_dynamics.py (which itself is pinned to the
+// bipedal_nmpc/model/host_dynamics.py (which itself is pinned to the
 // JAX implementation by tests/test_host_wbc.py); a ctypes parity test pins
 // this kernel against the numpy twin to rounding error.
 //

@@ -2,7 +2,7 @@
 //
 // The reference's 400-500 Hz torque path solves its QP natively on the host
 // (qpOASES C++, bipedal_wbc/src/WeightedWbc.cpp:53-81).  Our host solver
-// (bipedal_control_tpu/wbc/host_wbc.py) assembles the problem in numpy and
+// (bipedal_nmpc/wbc/host_wbc.py) assembles the problem in numpy and
 // factorizes the small SPD Schur complement once per tick; the fixed-point
 // iterations are pure small-matrix arithmetic where numpy's per-call
 // overhead (~1.5 us x ~10 calls x 40 iterations) dominates the flops, so

@@ -1,6 +1,6 @@
 // Native real-time runtime: lock-free policy handoff + periodic RT loop.
 //
-// TPU-native equivalent of the reference's real-time plumbing:
+// Native equivalent of the reference's real-time plumbing:
 //  - PolicySlot: seqlock double-buffer replacing realtime_tools::RealtimeBuffer
 //    (the MPC->control-thread policy handoff inside MPC_MRT_Interface,
 //    BipedalController.cpp:319-352): the solver thread publishes the policy

@@ -19,7 +19,7 @@ MJCF = os.path.join(
 
 
 def _fake_policy(rng, N=8, nx=5, nu=3, P=6):
-    from bipedal_control_tpu.runtime.async_mpc import _PolicyLayout
+    from bipedal_nmpc.runtime.async_mpc import _PolicyLayout
 
     class Sol:
         t_nodes = np.sort(rng.uniform(0, 1, N + 1))
@@ -42,12 +42,12 @@ def test_policy_snapshot_roundtrip():
     MRT evaluator on the same policy."""
     import jax.numpy as jnp
 
-    from bipedal_control_tpu.runtime.async_mpc import (
+    from bipedal_nmpc.runtime.async_mpc import (
         contact_flags_at_np,
         evaluate_policy_np,
     )
-    from bipedal_control_tpu.runtime.mrt import evaluate_policy
-    from bipedal_control_tpu.solver.sqp import SqpSolution
+    from bipedal_nmpc.runtime.mrt import evaluate_policy
+    from bipedal_nmpc.solver.sqp import SqpSolution
 
     rng = np.random.default_rng(0)
     layout, sol, gait = _fake_policy(rng)
@@ -89,9 +89,9 @@ def test_mujoco_async_closed_loop():
     pytest.importorskip("mujoco")
     import jax.numpy as jnp
 
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.runtime.controller import BipedalController, ControllerConfig
-    from bipedal_control_tpu.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.runtime.controller import BipedalController, ControllerConfig
+    from bipedal_nmpc.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
 
     iface = make_interface_for("h1")
     sim = MujocoSimBackend(MJCF, list(iface.task.joint_names), MujocoSimConfig())
@@ -131,7 +131,7 @@ def test_mujoco_async_closed_loop():
                 break
         pos = sim.ground_truth()[0]
         rep = ctrl.report()
-        # tick-path budget in isolation: stop the worker (on TPU it would be
+        # tick-path budget in isolation: stop the worker (on the device it would be
         # waiting on the device with the GIL released — here on CPU its
         # host-bound solve convoys the GIL, which is a test-host artifact,
         # not the deployed architecture) and measure 400 pure control ticks
@@ -168,9 +168,9 @@ def test_mujoco_async_kalman_closed_loop():
     contact Kalman filter on raw sensors with measured contact flags — no
     ground truth anywhere on the control path, no solve on the tick."""
     pytest.importorskip("mujoco")
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.runtime.controller import BipedalController, ControllerConfig
-    from bipedal_control_tpu.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.runtime.controller import BipedalController, ControllerConfig
+    from bipedal_nmpc.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
 
     iface = make_interface_for("h1")
     sim = MujocoSimBackend(MJCF, list(iface.task.joint_names), MujocoSimConfig())
@@ -223,7 +223,7 @@ def test_worker_crash_flags_failed():
     a deliberate stop() does not."""
     import time
 
-    from bipedal_control_tpu.runtime.async_mpc import AsyncMpcRunner
+    from bipedal_nmpc.runtime.async_mpc import AsyncMpcRunner
 
     class _Info:
         state_dim, input_dim = 5, 3
@@ -280,10 +280,10 @@ def test_rt_loop_drives_controller():
     deployment composition (BipedalHWLoop read->update->write).  The plant
     here is the MuJoCo sim stepped from the write callback."""
     pytest.importorskip("mujoco")
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.runtime.controller import BipedalController, ControllerConfig
-    from bipedal_control_tpu.runtime.rt_runner import RtControllerRunner
-    from bipedal_control_tpu.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.runtime.controller import BipedalController, ControllerConfig
+    from bipedal_nmpc.runtime.rt_runner import RtControllerRunner
+    from bipedal_nmpc.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
 
     iface = make_interface_for("h1")
     sim = MujocoSimBackend(MJCF, list(iface.task.joint_names), MujocoSimConfig())

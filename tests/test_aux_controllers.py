@@ -1,7 +1,7 @@
 """Initial/upper joint controllers and policy checkpointing."""
 import numpy as np
 
-from bipedal_control_tpu.runtime.aux_controllers import (
+from bipedal_nmpc.runtime.aux_controllers import (
     InitialJointPositionController,
     UpperJointController,
     load_policy,
@@ -35,7 +35,7 @@ def test_upper_controller_holds():
 def test_policy_save_load_roundtrip(tmp_path):
     import jax.numpy as jnp
 
-    from bipedal_control_tpu.solver.sqp import SqpSolution
+    from bipedal_nmpc.solver.sqp import SqpSolution
 
     sol = SqpSolution(
         t_nodes=jnp.linspace(0, 1, 5),

@@ -15,11 +15,11 @@ import jax.numpy as jnp
 def test_build_refs_dq_swing_masks_by_leg(h1_model, h1_info):
     """dq_swing offsets apply to x_nom's joint block only on nodes where
     that leg is in swing; stance-node references stay untouched."""
-    from bipedal_control_tpu.gait.mode_schedule import GaitSchedule, ModeSchedule, ModeSequenceTemplate
-    from bipedal_control_tpu.gait.swing import SwingConfig, plan_swing_table
-    from bipedal_control_tpu.reference.manager import ReferenceManager
-    from bipedal_control_tpu.reference.target import TargetTrajectories
-    from bipedal_control_tpu.solver.sqp import build_refs
+    from bipedal_nmpc.gait.mode_schedule import GaitSchedule, ModeSchedule, ModeSequenceTemplate
+    from bipedal_nmpc.gait.swing import SwingConfig, plan_swing_table
+    from bipedal_nmpc.reference.manager import ReferenceManager
+    from bipedal_nmpc.reference.target import TargetTrajectories
+    from bipedal_nmpc.solver.sqp import build_refs
 
     nj = h1_info.nj
     x0 = np.zeros(12 + nj)
@@ -63,13 +63,13 @@ def test_build_refs_dq_swing_masks_by_leg(h1_model, h1_info):
 
 
 def test_capture_config_parsed_for_openloong_and_hunter():
-    from bipedal_control_tpu.robots import get_assets
-    from bipedal_control_tpu.config.loader import load_task_config
+    from bipedal_nmpc.robots import get_assets
+    from bipedal_nmpc.config.loader import load_task_config
 
     for robot, lname in (("openloong", "J_hip_l_roll"), ("hunter", "leg_l1_joint")):
         a = get_assets(robot)
-        if a.task_info is None:
-            pytest.skip(f"{robot} assets unavailable")
+        if a.missing_files():
+            pytest.skip(f"{robot} assets unavailable (set $BIPEDAL_ASSETS)")
         task = load_task_config(
             a.task_info, a.reference_info, a.gait_info, a.overrides_info, a.extra_gait_info
         )
@@ -83,8 +83,8 @@ def test_capture_dq_direction():
     """A rightward (−y) velocity error must bias BOTH hip-roll references
     toward −roll (feet step toward −y, under the +x axis convention), and
     the offset saturates at max_offset."""
-    from bipedal_control_tpu.config.loader import CaptureConfig
-    from bipedal_control_tpu.runtime.mpc_runner import capture_dq_from_state
+    from bipedal_nmpc.config.loader import CaptureConfig
+    from bipedal_nmpc.runtime.mpc_runner import capture_dq_from_state
 
     cap = CaptureConfig(left_index=1, right_index=6, kp=0.8, kv=0.4, max_offset=0.25)
     nj = 10
@@ -111,9 +111,9 @@ def test_capture_touchdown_sync_lipm_propagation():
     per-leg capture error is LIPM-propagated to that leg's next touchdown.
     A leg touching down NOW gets the instantaneous bias; a leg touching
     down later gets the cosh/sinh-amplified error; zero error stays zero."""
-    from bipedal_control_tpu.config.loader import CaptureConfig
-    from bipedal_control_tpu.gait.mode_schedule import ModeSchedule, freeze_mode_schedule
-    from bipedal_control_tpu.runtime.mpc_runner import capture_dq_from_state
+    from bipedal_nmpc.config.loader import CaptureConfig
+    from bipedal_nmpc.gait.mode_schedule import ModeSchedule, freeze_mode_schedule
+    from bipedal_nmpc.runtime.mpc_runner import capture_dq_from_state
 
     cap = CaptureConfig(
         left_index=1, right_index=6, kp=0.0, kv=0.4, max_offset=10.0,
@@ -142,10 +142,10 @@ def test_build_refs_weight_shift(h1_info):
     """weightShift: the base-y reference moves toward the single-support
     stance foot per node (+amp in LF, -amp in RF, 0 in double support),
     rotated to world by the node's yaw reference."""
-    from bipedal_control_tpu.gait.mode_schedule import ModeSchedule, freeze_mode_schedule
-    from bipedal_control_tpu.gait.swing import SwingConfig, plan_swing_table
-    from bipedal_control_tpu.reference.target import TargetTrajectories
-    from bipedal_control_tpu.solver.sqp import build_refs
+    from bipedal_nmpc.gait.mode_schedule import ModeSchedule, freeze_mode_schedule
+    from bipedal_nmpc.gait.swing import SwingConfig, plan_swing_table
+    from bipedal_nmpc.reference.target import TargetTrajectories
+    from bipedal_nmpc.solver.sqp import build_refs
 
     nj = h1_info.nj
     x0 = np.zeros(12 + nj)

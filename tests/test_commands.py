@@ -8,17 +8,17 @@ import pytest
 
 
 @pytest.fixture(scope="module")
-def h1_iface():
-    from bipedal_control_tpu.interface import make_interface_for
+def g1_iface():
+    from bipedal_nmpc.interface import make_interface_for
 
-    return make_interface_for("h1")
+    return make_interface_for("g1")
 
 
-def test_command_router_parsing(h1_iface):
-    from bipedal_control_tpu.runtime.commands import CommandRouter
-    from bipedal_control_tpu.runtime.mpc_runner import MpcRunner
+def test_command_router_parsing(g1_iface):
+    from bipedal_nmpc.runtime.commands import CommandRouter
+    from bipedal_nmpc.runtime.mpc_runner import MpcRunner
 
-    iface = h1_iface
+    iface = g1_iface
     mpc = MpcRunner(iface)
     x0 = np.asarray(iface.initial_state)
     router = CommandRouter(mpc, iface, observation=lambda: (0.0, x0))
@@ -43,14 +43,27 @@ def test_command_router_parsing(h1_iface):
     assert "holding" in router.handle("stop")
 
 
-def test_mid_run_retarget_dummy_loop(h1_iface):
+def test_mid_run_retarget_dummy_loop():
     """Scripted stance -> trot (+cmd_vel) -> stance on one uninterrupted
-    dummy loop: commands mutate the running MPC via the router only."""
-    from bipedal_control_tpu.runtime.commands import CommandRouter
-    from bipedal_control_tpu.runtime.mpc_runner import MpcRunner
-    from bipedal_control_tpu.sim.dummy_loop import run_dummy_loop
+    dummy loop: commands mutate the running MPC via the router only.
 
-    iface = h1_iface
+    Runs in float32, the dtype the card runs.  In float64 the stage KKT's
+    dual regularization (1e-9) leaves the stance rows' rank deficiency
+    (toe + heel of one rigid foot) nearly unregularized, and the G1
+    stand-in's yaw diverges once it walks under the 400 Hz feedback
+    policy (measured at 0.2-0.4 m/s; an open item in ROADMAP.md)."""
+    import jax
+
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.runtime.commands import CommandRouter
+    from bipedal_nmpc.runtime.mpc_runner import MpcRunner
+    from bipedal_nmpc.sim.dummy_loop import run_dummy_loop
+
+    with jax.enable_x64(False):
+        _retarget_dummy_loop(make_interface_for("g1"), CommandRouter, MpcRunner, run_dummy_loop)
+
+
+def _retarget_dummy_loop(iface, CommandRouter, MpcRunner, run_dummy_loop):
     mpc = MpcRunner(iface)
     x0 = np.asarray(iface.initial_state)
 
@@ -81,14 +94,14 @@ def test_mid_run_retarget_dummy_loop(h1_iface):
     np.testing.assert_array_equal(flags, np.ones(4))
     assert np.all(np.isfinite(res.states))
 
-def test_runtime_reconfigure_live_controller(h1_iface):
+def test_runtime_reconfigure_live_controller(g1_iface):
     """dynamic_reconfigure parity (BipedalController.cpp:407-478): change a
     WBC task weight and per-motor PD gains on a RUNNING controller and
     observe the behavior change on the very next tick."""
-    from bipedal_control_tpu.runtime.commands import CommandRouter
-    from bipedal_control_tpu.runtime.controller import BipedalController, ControllerConfig
+    from bipedal_nmpc.runtime.commands import CommandRouter
+    from bipedal_nmpc.runtime.controller import BipedalController, ControllerConfig
 
-    iface = h1_iface
+    iface = g1_iface
     ctrl = BipedalController(iface, ControllerConfig())
     router = CommandRouter(ctrl, iface, observation=lambda: ctrl.last_observation)
 

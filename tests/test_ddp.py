@@ -22,9 +22,9 @@ pytestmark = pytest.mark.skipif(
 
 
 def test_ilqr_h1_stance_warm():
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.solver import build_refs, initial_trajectory, sqp_solve
-    from bipedal_control_tpu.solver.ddp import DdpSettings, ilqr_solve
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.solver import build_refs, initial_trajectory, sqp_solve
+    from bipedal_nmpc.solver.ddp import DdpSettings, ilqr_solve
 
     iface = make_interface_for("h1")
     settings = dataclasses.replace(iface.settings, sqp_iterations=1)
@@ -64,9 +64,9 @@ def test_ilqr_h1_stance_cold_start():
     """From the Initializer alone (no SQP refinement) the AL-iLQR converges
     to a near-feasible stance trajectory — the former penalty-only path
     diverged at the first open-loop rollout (eq_norm ~3000)."""
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.solver import build_refs, initial_trajectory
-    from bipedal_control_tpu.solver.ddp import DdpSettings, ilqr_solve
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.solver import build_refs, initial_trajectory
+    from bipedal_nmpc.solver.ddp import DdpSettings, ilqr_solve
 
     iface = make_interface_for("h1")
     settings = dataclasses.replace(iface.settings, sqp_iterations=1)
@@ -98,10 +98,10 @@ def test_golden_trot_sqp_vs_ilqr():
     separately for boundedness: 48 accumulated single-shooting iterations on
     a stationary trot can legally settle dm away in the barely-weighted
     xy/yaw valley, so trajectory equality there is not a stable signal."""
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.runtime.mpc_runner import MpcRunner
-    from bipedal_control_tpu.solver import build_refs
-    from bipedal_control_tpu.solver.ddp import DdpSettings, ilqr_solve
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.runtime.mpc_runner import MpcRunner
+    from bipedal_nmpc.solver import build_refs
+    from bipedal_nmpc.solver.ddp import DdpSettings, ilqr_solve
 
     iface = make_interface_for("h1")
     x0 = jnp.asarray(iface.initial_state)
@@ -151,9 +151,9 @@ def test_ilqr_rolling_mpc_loop():
     feedforward, so the warm-shifted horizon tail never recovers its sag and
     the plan dives through the floor within ~35 replans.  With the
     constrained-KKT backward (it>=1) + small shift both hold z near target."""
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.runtime.mpc_runner import MpcRunner
-    from bipedal_control_tpu.sim.dummy_loop import run_dummy_loop
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.runtime.mpc_runner import MpcRunner
+    from bipedal_nmpc.sim.dummy_loop import run_dummy_loop
 
     iface = make_interface_for("h1")
     mpc = MpcRunner(iface, solver="ilqr", ddp_iterations=8)
@@ -188,9 +188,9 @@ def test_ilqr_levenberg_marquardt_strategy():
     import os
 
     from conftest import REFERENCE_ASSETS
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.solver import build_refs, initial_trajectory, sqp_solve
-    from bipedal_control_tpu.solver.ddp import DdpSettings, ilqr_solve
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.solver import build_refs, initial_trajectory, sqp_solve
+    from bipedal_nmpc.solver.ddp import DdpSettings, ilqr_solve
 
     iface = make_interface_for("h1")
     settings = dataclasses.replace(iface.settings, sqp_iterations=1)
@@ -256,7 +256,7 @@ def test_ilqr_levenberg_marquardt_strategy():
     )
 
     # loader plumbing
-    from bipedal_control_tpu.config.loader import load_task_config
+    from bipedal_nmpc.config.loader import load_task_config
 
     task = os.path.join(
         REFERENCE_ASSETS,

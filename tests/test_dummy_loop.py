@@ -20,14 +20,14 @@ pytestmark = pytest.mark.skipif(
 
 @pytest.fixture(scope="module")
 def h1_iface():
-    from bipedal_control_tpu.interface import make_interface_for
+    from bipedal_nmpc.interface import make_interface_for
 
     return make_interface_for("h1")
 
 
 def test_h1_trot_dummy_loop(h1_iface):
-    from bipedal_control_tpu.runtime.mpc_runner import MpcRunner
-    from bipedal_control_tpu.sim.dummy_loop import run_dummy_loop
+    from bipedal_nmpc.runtime.mpc_runner import MpcRunner
+    from bipedal_nmpc.sim.dummy_loop import run_dummy_loop
 
     iface = h1_iface
     mpc = MpcRunner(iface)
@@ -43,16 +43,16 @@ def test_h1_trot_dummy_loop(h1_iface):
     assert np.abs(base[:, 4:]).max() < 0.15
     # normalized momentum bounded
     assert np.abs(res.states[:, 0:6]).max() < 1.0
-    # MPC latency measured (CPU numbers; the TPU bench is bench.py)
+    # MPC latency measured (CPU numbers; the device bench is bench.py)
     assert res.mpc_stats["count"] >= 40
 
 
 def test_h1_cmd_vel_tracking(h1_iface):
     """Forward walk command: the dummy loop must make forward progress at
     roughly the commanded speed (cmd_vel -> target trajectory path)."""
-    from bipedal_control_tpu.reference.target import cmd_vel_to_target_trajectories
-    from bipedal_control_tpu.runtime.mpc_runner import MpcRunner
-    from bipedal_control_tpu.sim.dummy_loop import run_dummy_loop
+    from bipedal_nmpc.reference.target import cmd_vel_to_target_trajectories
+    from bipedal_nmpc.runtime.mpc_runner import MpcRunner
+    from bipedal_nmpc.sim.dummy_loop import run_dummy_loop
 
     iface = h1_iface
     mpc = MpcRunner(iface)
@@ -76,8 +76,8 @@ def test_h1_trot_golden_regression(h1_iface):
     H1-trot dummy loop endpoint is pinned so solver/model changes that shift
     the closed-loop behavior get flagged.  Regenerate the values deliberately
     when an intentional change lands (scripts in tests/README note)."""
-    from bipedal_control_tpu.runtime.mpc_runner import MpcRunner
-    from bipedal_control_tpu.sim.dummy_loop import run_dummy_loop
+    from bipedal_nmpc.runtime.mpc_runner import MpcRunner
+    from bipedal_nmpc.sim.dummy_loop import run_dummy_loop
 
     iface = h1_iface
     mpc = MpcRunner(iface)

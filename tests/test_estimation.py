@@ -3,19 +3,19 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from bipedal_control_tpu.estim import (
+from bipedal_nmpc.estim import (
     KalmanConfig,
     kalman_init,
     kalman_update,
     rbd_state_from_ground_truth,
 )
-from bipedal_control_tpu.model.centroidal import (
+from bipedal_nmpc.model.centroidal import (
     centroidal_state_from_rbd,
     contact_positions,
     rbd_state_from_centroidal,
 )
-from bipedal_control_tpu.ocp.problem import weight_compensating_input
-from bipedal_control_tpu.utils.rotations import rotmat_from_zyx
+from bipedal_nmpc.ocp.problem import weight_compensating_input
+from bipedal_nmpc.utils.rotations import rotmat_from_zyx
 
 
 def test_cheater_rbd_roundtrip(h1_model, h1_info, rng):
@@ -91,7 +91,7 @@ def test_kalman_estimator_noise_and_chatter(h1_model, h1_info):
     and CHATTERING contact flags, standing truth.  With flag debounce the
     estimator holds base position error < 0.1 m over 3 s; the debouncer
     passes clean flags through untouched after the hold window."""
-    from bipedal_control_tpu.estim.estimator import KalmanStateEstimator
+    from bipedal_nmpc.estim.estimator import KalmanStateEstimator
 
     x_nom = np.concatenate([np.zeros(6), [0, 0, 0.93, 0, 0, 0], [0, 0, -0.5, 1.0, -0.5] * 2])
     q = jnp.asarray(x_nom[6:])
@@ -128,7 +128,7 @@ def test_kalman_estimator_noise_and_chatter(h1_model, h1_info):
 
 def test_flag_debounce_semantics():
     """A change must persist debounce_ticks consecutive ticks to pass."""
-    from bipedal_control_tpu.estim.estimator import KalmanStateEstimator
+    from bipedal_nmpc.estim.estimator import KalmanStateEstimator
 
     class _Shim(KalmanStateEstimator):
         def __init__(self):  # skip model setup; only _debounce is under test

@@ -8,10 +8,10 @@ import pytest
 
 
 @pytest.fixture(scope="module")
-def h1_iface():
-    from bipedal_control_tpu.interface import make_interface_for
+def g1_iface():
+    from bipedal_nmpc.interface import make_interface_for
 
-    return make_interface_for("h1")
+    return make_interface_for("g1")
 
 
 def _random_rbd(rng, nj):
@@ -20,16 +20,16 @@ def _random_rbd(rng, nj):
     return rbd
 
 
-def test_centroidal_state_from_rbd_parity(h1_iface):
+def test_centroidal_state_from_rbd_parity(g1_iface):
     import jax.numpy as jnp
 
-    from bipedal_control_tpu.model.centroidal import centroidal_state_from_rbd
-    from bipedal_control_tpu.model.host_model import (
+    from bipedal_nmpc.model.centroidal import centroidal_state_from_rbd
+    from bipedal_nmpc.model.host_model import (
         centroidal_state_from_rbd_np,
         make_host_model,
     )
 
-    iface = h1_iface
+    iface = g1_iface
     hm = make_host_model(iface.model, iface.info)
     rng = np.random.default_rng(42)
     for _ in range(5):
@@ -39,16 +39,16 @@ def test_centroidal_state_from_rbd_parity(h1_iface):
         np.testing.assert_allclose(got, ref, atol=1e-10, rtol=1e-10)
 
 
-def test_cmm_parity(h1_iface):
+def test_cmm_parity(g1_iface):
     import jax.numpy as jnp
 
-    from bipedal_control_tpu.model.centroidal import centroidal_momentum_matrix
-    from bipedal_control_tpu.model.host_model import (
+    from bipedal_nmpc.model.centroidal import centroidal_momentum_matrix
+    from bipedal_nmpc.model.host_model import (
         centroidal_momentum_matrix_np,
         make_host_model,
     )
 
-    iface = h1_iface
+    iface = g1_iface
     hm = make_host_model(iface.model, iface.info)
     rng = np.random.default_rng(7)
     q = rng.normal(scale=0.3, size=6 + iface.info.nj)
@@ -57,16 +57,16 @@ def test_cmm_parity(h1_iface):
     np.testing.assert_allclose(got, ref, atol=1e-10, rtol=1e-10)
 
 
-def test_host_observation_speed(h1_iface):
+def test_host_observation_speed(g1_iface):
     """The tick-path observation must be comfortably sub-millisecond."""
     import time
 
-    from bipedal_control_tpu.model.host_model import (
+    from bipedal_nmpc.model.host_model import (
         centroidal_state_from_rbd_np,
         make_host_model,
     )
 
-    iface = h1_iface
+    iface = g1_iface
     hm = make_host_model(iface.model, iface.info)
     rbd = _random_rbd(np.random.default_rng(0), iface.info.nj)
     centroidal_state_from_rbd_np(hm, rbd)  # warm numpy caches

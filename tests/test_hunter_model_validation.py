@@ -23,11 +23,11 @@ def test_hunter_fk_com_momentum_vs_mujoco(tmp_path):
     mujoco = pytest.importorskip("mujoco")
     import jax.numpy as jnp
 
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.model.centroidal import centroidal_momentum_matrix
-    from bipedal_control_tpu.model.kinematics import forward_kinematics
-    from bipedal_control_tpu.sim.urdf_mjcf import build_mjcf_scene_from_urdf
-    from bipedal_control_tpu.utils.rotations import rotmat_from_zyx
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.model.centroidal import centroidal_momentum_matrix
+    from bipedal_nmpc.model.kinematics import forward_kinematics
+    from bipedal_nmpc.sim.urdf_mjcf import build_mjcf_scene_from_urdf
+    from bipedal_nmpc.utils.rotations import rotmat_from_zyx
 
     iface = make_interface_for("hunter")
     model = iface.model

@@ -23,10 +23,10 @@ pytestmark = pytest.mark.skipif(not os.path.exists(URDF), reason="hunter URDF un
 
 def test_hunter_scene_builds_and_steps(tmp_path):
     pytest.importorskip("mujoco")
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.runtime.controller import JointCommand
-    from bipedal_control_tpu.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
-    from bipedal_control_tpu.sim.urdf_mjcf import build_mjcf_scene_from_urdf
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.runtime.controller import JointCommand
+    from bipedal_nmpc.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
+    from bipedal_nmpc.sim.urdf_mjcf import build_mjcf_scene_from_urdf
 
     iface = make_interface_for("hunter")
     scene = build_mjcf_scene_from_urdf(
@@ -91,10 +91,10 @@ def test_hunter_stands_closed_loop(tmp_path):
     The 23.7 N m torque cap is NOT the blocker — static stance needs only
     ~5 N m at the knee."""
     pytest.importorskip("mujoco")
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.runtime.controller import BipedalController, JointCommand
-    from bipedal_control_tpu.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
-    from bipedal_control_tpu.sim.urdf_mjcf import build_mjcf_scene_from_urdf
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.runtime.controller import BipedalController, JointCommand
+    from bipedal_nmpc.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
+    from bipedal_nmpc.sim.urdf_mjcf import build_mjcf_scene_from_urdf
 
     iface = make_interface_for("hunter")
     scene = build_mjcf_scene_from_urdf(
@@ -155,11 +155,11 @@ def test_hunter_steps_and_walks(tmp_path):
     with |y| < 0.08.  This test walks 5.5 s and asserts the tracking
     bound."""
     pytest.importorskip("mujoco")
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.reference.target import CmdVelFollower
-    from bipedal_control_tpu.runtime.controller import BipedalController, JointCommand
-    from bipedal_control_tpu.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
-    from bipedal_control_tpu.sim.urdf_mjcf import build_mjcf_scene_from_urdf
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.reference.target import CmdVelFollower
+    from bipedal_nmpc.runtime.controller import BipedalController, JointCommand
+    from bipedal_nmpc.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
+    from bipedal_nmpc.sim.urdf_mjcf import build_mjcf_scene_from_urdf
 
     iface = make_interface_for("hunter")
     scene = build_mjcf_scene_from_urdf(
@@ -225,11 +225,11 @@ def test_hunter_lateral_and_yaw_envelope(tmp_path):
     cmd 0.15 rad/s while covering 1.0 m).  This test pins the lateral
     side-step — the harder axis on line feet."""
     pytest.importorskip("mujoco")
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.reference.target import CmdVelFollower
-    from bipedal_control_tpu.runtime.controller import BipedalController, JointCommand
-    from bipedal_control_tpu.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
-    from bipedal_control_tpu.sim.urdf_mjcf import build_mjcf_scene_from_urdf
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.reference.target import CmdVelFollower
+    from bipedal_nmpc.runtime.controller import BipedalController, JointCommand
+    from bipedal_nmpc.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
+    from bipedal_nmpc.sim.urdf_mjcf import build_mjcf_scene_from_urdf
 
     iface = make_interface_for("hunter")
     scene = build_mjcf_scene_from_urdf(
@@ -284,8 +284,8 @@ def test_hunter_safety_stop_semantics():
     observation (beyond the tilt limit) must latch safe=False and command
     damping-only (zero stiffness, zero feedforward, positive kd) —
     BipedalController's safety path without needing a physical fall."""
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.runtime.controller import BipedalController
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.runtime.controller import BipedalController
 
     iface = make_interface_for("hunter")
     ctrl = BipedalController(iface)

@@ -4,7 +4,7 @@ controls as a viewer-independent state machine, unit-tested without a GUI
 (the passive viewer adds mouse perturbation natively)."""
 import numpy as np
 
-from bipedal_control_tpu.sim.interactive import NoiseConfig, SimInteraction
+from bipedal_nmpc.sim.interactive import NoiseConfig, SimInteraction
 
 
 def test_pause_and_speed_keys():

@@ -1,7 +1,7 @@
 """Primal-dual interior-point friction cones (cone="ipm", VERDICT r3 #7).
 
 The reference can run OCS2's IPM solver as configured by the task.info ipm
-block (task.info:86-156).  solver/sqp.py's cone="ipm" is the TPU-first
+block (task.info:86-156).  solver/sqp.py's cone="ipm" is the batch-friendly
 primal-dual equivalent: per-node slack/dual iterates on the stance cones,
 condensed Newton terms on the stage quadratics, fraction-to-boundary caps
 with INDEPENDENT dual steps (usePrimalStepSizeForDual=false semantics — the
@@ -10,8 +10,8 @@ residual ||g - s||^2 in the filter-linesearch violation channel, and a
 geometric central-path schedule mu_init -> mu_target.  All static-shape:
 swing cones carry benign masked iterates, no per-constraint control flow.
 
-Measured comparison on the cone-ACTIVE lateral-push scenario (documenting
-"which wins on TPU", 2026-08-21): the task-configured soft relaxed barrier
+Measured comparison on the cone-ACTIVE lateral-push scenario (CPU,
+float64): the task-configured soft relaxed barrier
 leaves the binding cone at g = -7.06 N (it is weak by configuration: large
 delta, small mu); the primal-dual path pulls it to EXACTLY the boundary
 (g = 0.000) with defect 1.4e-6 and only ~5 N of force adjustment — strict
@@ -33,8 +33,8 @@ def pushed():
     VIOLATE the cone (g_min ~ -7), plus the converged soft solution as the
     warm start (the RTI deployment shape: IPM refines the running policy)."""
     _require_h1()
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.solver.sqp import build_refs, initial_trajectory, sqp_solve
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.solver.sqp import build_refs, initial_trajectory, sqp_solve
 
     iface = make_interface_for("h1")
     rm = iface.make_reference_manager()
@@ -53,7 +53,7 @@ def pushed():
 
 
 def _cone_values(iface, settings, u_traj):
-    from bipedal_control_tpu.ocp.problem import friction_cone_values
+    from bipedal_nmpc.ocp.problem import friction_cone_values
 
     return np.stack(
         [
@@ -66,7 +66,7 @@ def _cone_values(iface, settings, u_traj):
 def test_barrier_mu_zero_is_inert():
     """cone="ipm" disables the soft barrier by barrier_mu=0; the relaxed
     barrier must vanish identically (incl. the quadratic extension)."""
-    from bipedal_control_tpu.ocp.problem import relaxed_barrier
+    from bipedal_nmpc.ocp.problem import relaxed_barrier
 
     h = jnp.asarray([-5.0, -0.001, 0.0, 0.004, 0.2, 50.0])
     pen = np.asarray(relaxed_barrier(h, 0.0, 5.0))
@@ -84,7 +84,7 @@ def test_ipm_enforces_active_cone_with_duals(pushed):
         f"scenario no longer cone-active: soft gmin {g_soft[flags].min():.2f}"
     )
 
-    from bipedal_control_tpu.solver.sqp import sqp_solve
+    from bipedal_nmpc.solver.sqp import sqp_solve
 
     settings = dataclasses.replace(
         iface.settings, cone="ipm", sqp_iterations=12,
@@ -120,7 +120,7 @@ def test_ipm_inert_when_cones_inactive(pushed):
     to solver precision — the slack/dual machinery adds nothing when the
     constraint is inactive."""
     iface, refs, t_nodes, x0, _ = pushed
-    from bipedal_control_tpu.solver.sqp import (
+    from bipedal_nmpc.solver.sqp import (
         build_refs,  # noqa: F401 (signature parity)
         initial_trajectory,
         sqp_solve,
@@ -152,7 +152,7 @@ def test_ipm_settings_bound_from_reference_config():
     """make_interface_for wires the parsed task.info ipm block onto the
     primal-dual knobs (central-path schedule + fraction-to-boundary)."""
     _require_h1()
-    from bipedal_control_tpu.interface import make_interface_for
+    from bipedal_nmpc.interface import make_interface_for
 
     iface = make_interface_for("h1")
     st = iface.settings

@@ -14,13 +14,23 @@ import pytest
 
 @pytest.fixture(scope="module")
 def h1():
-    from bipedal_control_tpu.interface import make_interface_for
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.robots import get_assets
 
+    if get_assets("h1").missing_files():
+        pytest.skip("h1 assets unavailable (set $BIPEDAL_ASSETS)")
     return make_interface_for("h1")
 
 
+@pytest.fixture(scope="module")
+def g1():
+    from bipedal_nmpc.interface import make_interface_for
+
+    return make_interface_for("g1")
+
+
 def _roll(model, info, cfg, st, n, q_des, kp, kd):
-    import bipedal_control_tpu.sim.jax_physics as JP
+    import bipedal_nmpc.sim.jax_physics as JP
 
     @partial(jax.jit, static_argnums=(1,))
     def run(st, n):
@@ -33,17 +43,17 @@ def _roll(model, info, cfg, st, n, q_des, kp, kd):
     return run(st, n)
 
 
-def test_free_fall_ballistic(h1):
+def test_free_fall_ballistic(g1):
     """No contact, no torque: the base integrates exactly ballistically."""
-    import bipedal_control_tpu.sim.jax_physics as JP
+    import bipedal_nmpc.sim.jax_physics as JP
 
-    model, info = h1.model, h1.info
+    model, info = g1.model, g1.info
     cfg = JP.JaxSimConfig()
-    st = JP.initial_sim_state(model, info, jnp.asarray(h1.initial_state))
+    st = JP.initial_sim_state(model, info, jnp.asarray(g1.initial_state))
     st = st._replace(q=st.q.at[2].set(2.0))
     T = 0.3
     st2, _ = _roll(model, info, cfg, st, int(T / cfg.dt),
-                   jnp.asarray(h1.initial_state[12:]), 0.0, 0.0)
+                   jnp.asarray(g1.initial_state[12:]), 0.0, 0.0)
     dz = float(st2.q[2]) - 2.0
     # semi-implicit Euler: dz = -g dt^2 n(n+1)/2
     n = int(T / cfg.dt)
@@ -52,36 +62,36 @@ def test_free_fall_ballistic(h1):
     assert float(jnp.abs(st2.v[3:6]).max()) < 1e-10  # no phantom rotation
 
 
-def test_statue_static_force_balance(h1):
+def test_statue_static_force_balance(g1):
     """Stiff PD hold: the robot stands; total normal force == weight."""
-    import bipedal_control_tpu.sim.jax_physics as JP
+    import bipedal_nmpc.sim.jax_physics as JP
 
-    model, info = h1.model, h1.info
+    model, info = g1.model, g1.info
     cfg = JP.JaxSimConfig(torque_limit=500.0)
-    x0 = jnp.asarray(h1.initial_state)
+    x0 = jnp.asarray(g1.initial_state)
     st = JP.initial_sim_state(model, info, x0)
     st = st._replace(q=st.q.at[2].add(0.01))  # drop in from 1 cm
     st2, tr = _roll(model, info, cfg, st, 3000, x0[12:], 3000.0, 100.0)
     tr = np.asarray(tr)
     weight = float(info.robot_mass) * 9.81
-    assert tr[-1, 0] > 0.9, tr[-1]  # standing height held
+    assert tr[-1, 0] > 0.9 * float(x0[8]), tr[-1]  # standing height held
     assert tr[-1, 1] < 0.1, tr[-1]  # upright
     assert abs(tr[-1, 2] - weight) < 0.02 * weight, (tr[-1, 2], weight)
     # settled: velocity transients decayed
     assert float(jnp.abs(st2.v).max()) < 0.15
 
 
-def test_sticking_feet_do_not_creep(h1):
+def test_sticking_feet_do_not_creep(g1):
     """The anchored tangential model gives true stiction: after the initial
     elastic settle (the anchor spring deflects a few mm under the standing
     leg-spread forces — compliance, not slip), the feet stop moving.  A
     viscous-only tangential model creeps without bound instead."""
-    import bipedal_control_tpu.sim.jax_physics as JP
-    from bipedal_control_tpu.model.kinematics import forward_kinematics
+    import bipedal_nmpc.sim.jax_physics as JP
+    from bipedal_nmpc.model.kinematics import forward_kinematics
 
-    model, info = h1.model, h1.info
+    model, info = g1.model, g1.info
     cfg = JP.JaxSimConfig(torque_limit=500.0)
-    x0 = jnp.asarray(h1.initial_state)
+    x0 = jnp.asarray(g1.initial_state)
     st = JP.initial_sim_state(model, info, x0)
     pts0 = np.asarray(JP._contact_points(model, info, forward_kinematics(model, st.q)))
     st1, _ = _roll(model, info, cfg, st, 3000, x0[12:], 3000.0, 100.0)
@@ -98,7 +108,7 @@ def test_sticking_feet_do_not_creep(h1):
 def test_batched_cascade_stance(h1):
     """Full MPC -> policy -> WBC -> PD -> physics cascade, batched and
     domain-randomized, one jitted program: every scenario stays upright."""
-    from bipedal_control_tpu.sim.batch_loop import (
+    from bipedal_nmpc.sim.batch_loop import (
         BatchLoopConfig,
         make_batched_closed_loop,
         randomized_initial_states,
@@ -123,7 +133,7 @@ def test_batched_cascade_standing_trot(h1):
     """The on-device cascade *steps*: a standing-trot gait spliced into the
     frozen tables makes the jitted episode lift and re-plant feet while
     staying upright — batched locomotion with zero host round trips."""
-    from bipedal_control_tpu.sim.batch_loop import (
+    from bipedal_nmpc.sim.batch_loop import (
         BatchLoopConfig,
         make_batched_closed_loop,
     )
@@ -147,7 +157,7 @@ def test_batched_cascade_walks(h1):
     retarget cadence — a target frozen once at t=0 leaves the robot
     trotting in place).  H1 covers >= 0.5 m in 3 s at cmd_vel 0.3 m/s
     after the gait-start transient, entirely on device."""
-    from bipedal_control_tpu.sim.batch_loop import (
+    from bipedal_nmpc.sim.batch_loop import (
         BatchLoopConfig,
         make_batched_closed_loop,
     )
@@ -176,8 +186,7 @@ def test_batched_cascade_walks_randomized(h1):
     (base pose + joint jitter, sim/batch_loop.py::randomized_initial_states)
     walk the full on-device cascade for 3 s at cmd 0.3; survival = upright
     (final z > 0.8, tilt < 0.8) AND progressed (x > 0.3*cmd*T).  The
-    committed survival-vs-jitter artifact at B=64 on the real chip is
-    SCENARIOS_r05.json (tools/scenario_survival.py).
+    survival-vs-jitter sweep at B=64 is tools/scenario_survival.py.
 
     Floor provenance (re-pinned 2026-08-22, VERDICT r4 weak #1): the H1
     captureStepping reflex shifted this fixed-seed draw from 3/8 to 2/8
@@ -190,7 +199,7 @@ def test_batched_cascade_walks_randomized(h1):
     ON and the floors re-pin to the measured 2/8 surviving, 4/8 upright
     (one scenario stays upright but walks backward).  Regression to
     near-zero is what these catch."""
-    from bipedal_control_tpu.sim.batch_loop import (
+    from bipedal_nmpc.sim.batch_loop import (
         BatchLoopConfig,
         make_batched_closed_loop,
         randomized_initial_states,
@@ -226,7 +235,7 @@ def test_batched_cascade_lateral_and_yaw(h1):
     is NOT asserted: toe/heel point contacts must stick-slip torsionally
     to pivot, which the anchored-friction plant makes chaotic — an
     aggressive in-place yaw command can spin either way)."""
-    from bipedal_control_tpu.sim.batch_loop import (
+    from bipedal_nmpc.sim.batch_loop import (
         BatchLoopConfig,
         make_batched_closed_loop,
     )
@@ -264,18 +273,18 @@ def test_on_device_vs_host_mujoco_stance_parity(h1):
     import os
 
     mjcf = os.path.join(
-        os.environ.get("BIPEDAL_ASSETS", "/root/reference"),
+        os.environ.get("BIPEDAL_ASSETS", ""),
         "bipedal_robot_example/unitree_h1/h1_description/mjcf/scene.xml",
     )
     if not os.path.exists(mjcf):
         pytest.skip("H1 MJCF unavailable")
     pytest.importorskip("mujoco")
-    from bipedal_control_tpu.runtime.controller import BipedalController
-    from bipedal_control_tpu.sim.batch_loop import (
+    from bipedal_nmpc.runtime.controller import BipedalController
+    from bipedal_nmpc.sim.batch_loop import (
         BatchLoopConfig,
         make_batched_closed_loop,
     )
-    from bipedal_control_tpu.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
+    from bipedal_nmpc.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
 
     iface = dataclasses.replace(
         h1, settings=dataclasses.replace(h1.settings, dt=0.05, sqp_iterations=1)
@@ -321,8 +330,8 @@ def test_batched_cascade_hunter_walks():
     import os
 
     from conftest import REFERENCE_ASSETS
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.sim.batch_loop import (
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.sim.batch_loop import (
         BatchLoopConfig,
         make_batched_closed_loop,
     )
@@ -356,8 +365,8 @@ def test_freeze_on_fall_guard(h1):
     state finite, below the fall threshold, no NaN pollution — while a
     nominal lane in the same batch is untouched (fell=False, stands).  The
     guard replaces the legacy keep-integrating semantics whose post-fall
-    blowups were the entire finite_frac<1 residual in SCENARIOS_r04.json."""
-    from bipedal_control_tpu.sim.batch_loop import (
+    blowups were the entire finite_frac<1 residual of an earlier sweep."""
+    from bipedal_nmpc.sim.batch_loop import (
         BatchLoopConfig,
         make_batched_closed_loop,
     )

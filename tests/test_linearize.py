@@ -3,14 +3,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bipedal_control_tpu.ocp.linearize import linearize_node_structured
-from bipedal_control_tpu.ocp.problem import NodeRefs, linearize_node, weight_compensating_input
+from bipedal_nmpc.ocp.linearize import linearize_node_structured
+from bipedal_nmpc.ocp.problem import NodeRefs, linearize_node, weight_compensating_input
 
 
 @pytest.mark.parametrize("flags", [(1.0, 1, 1, 1), (1, 1, 0, 0), (0, 0, 0, 0)])
 def test_structured_matches_ad(h1_model, h1_info, rng, flags):
     model, info = h1_model, h1_info
-    from bipedal_control_tpu.ocp.problem import OcpSettings
+    from bipedal_nmpc.ocp.problem import OcpSettings
 
     settings = OcpSettings(position_error_gain=0.3, exact_rk2_sensitivity=True)
     Q = jnp.asarray(np.diag(rng.uniform(1, 10, info.state_dim)))

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bipedal_control_tpu.model import (
+from bipedal_nmpc.model import (
     centroidal_momentum_matrix,
     forward_dynamics,
     gravity_vector,
@@ -12,7 +12,7 @@ from bipedal_control_tpu.model import (
     mass_matrix,
     nonlinear_effects,
 )
-from bipedal_control_tpu.utils.rotations import euler_rate_map_zyx, rotmat_from_zyx
+from bipedal_nmpc.utils.rotations import euler_rate_map_zyx, rotmat_from_zyx
 
 from test_model_kinematics import _set_mj_state, h1_full_pair  # noqa: F401
 
@@ -35,7 +35,7 @@ def test_mass_matrix_symmetric_pd(h1_model, rng):
 
 def test_energy_conservation_free_fall(h1_model, rng):
     """Unforced dynamics conserves total energy (symplectic check via RK4)."""
-    from bipedal_control_tpu.model.dynamics import potential_energy
+    from bipedal_nmpc.model.dynamics import potential_energy
 
     model = h1_model
     q, v = _rand_state(model, rng)

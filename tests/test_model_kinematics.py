@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bipedal_control_tpu.model import (
+from bipedal_nmpc.model import (
     build_reduced_model,
     com_position,
     forward_kinematics,
@@ -17,7 +17,7 @@ from bipedal_control_tpu.model import (
     frame_velocity,
     from_description,
 )
-from bipedal_control_tpu.utils.rotations import (
+from bipedal_nmpc.utils.rotations import (
     euler_rate_map_zyx,
     rotmat_from_zyx,
     zyx_from_rotmat,
@@ -188,7 +188,7 @@ def _set_mj_state(mujoco, m, d, model, q, v):
 def h1_full_pair():
     """(our full 19-joint model, mujoco model) over the same URDF."""
     mujoco, m, d, mj_joints = _h1_mujoco_full()
-    from bipedal_control_tpu.model import load_urdf
+    from bipedal_nmpc.model import load_urdf
 
     desc = load_urdf(H1_URDF, mj_joints)  # all joints actuated, mujoco order
     model = from_description(desc)
@@ -233,7 +233,7 @@ def test_h1_frame_velocity_against_mujoco(h1_full_pair, rng):
 def test_reduced_model_matches_full_locked(h1_full_pair, rng):
     """Welding the upper body at zero == full model with zero upper q."""
     _, _, _, full = h1_full_pair
-    from bipedal_control_tpu.model import load_urdf
+    from bipedal_nmpc.model import load_urdf
 
     red = from_description(load_urdf(H1_URDF, H1_LEG_JOINTS))
     q_red = np.concatenate([rng.uniform(-1, 1, 6) * 0.5, rng.uniform(-0.8, 0.8, red.nj)])

@@ -24,8 +24,8 @@ pytestmark = pytest.mark.skipif(not os.path.exists(MJCF), reason="H1 MJCF unavai
 
 def _make(mjcf, delay=0.0):
     pytest.importorskip("mujoco")
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
 
     iface = make_interface_for("h1")
     sim = MujocoSimBackend(
@@ -53,11 +53,11 @@ def test_walk_cmd_vel_with_delay_and_stance_return():
     them (possibly mid-swing, narrow support) and the stance hold slowly
     tips — the measured failure of the old instant switch-back once the
     fused replan raised the worker to its full 50 Hz cadence."""
-    from bipedal_control_tpu.reference.target import (
+    from bipedal_nmpc.reference.target import (
         cmd_vel_to_target_trajectories,
         stationary_target,
     )
-    from bipedal_control_tpu.runtime.controller import BipedalController, ControllerConfig
+    from bipedal_nmpc.runtime.controller import BipedalController, ControllerConfig
 
     iface, sim = _make(MJCF, delay=0.009)
     ctrl = BipedalController(iface, ControllerConfig(mpc_async=True))
@@ -135,8 +135,8 @@ def test_walk_kalman_estimator_beyond_reference_delay():
     0.318 / 7.7 cm; 21 ms 0.329 / 6.9 cm — NO break point up to 2.3x the
     reference's delay; only the lateral drift grows (y -0.15 -> -0.30 m
     over 5.5 s).  This test pins the 12 ms point."""
-    from bipedal_control_tpu.reference.target import CmdVelFollower
-    from bipedal_control_tpu.runtime.controller import BipedalController, ControllerConfig
+    from bipedal_nmpc.reference.target import CmdVelFollower
+    from bipedal_nmpc.runtime.controller import BipedalController, ControllerConfig
 
     iface, sim = _make(MJCF, delay=0.012)
     ctrl = BipedalController(iface, ControllerConfig(mpc_async=True, estimator="kalman"))
@@ -194,7 +194,7 @@ def test_terrain_scene_stance_smoke():
     """Stance balance on the reference's terrain scene (scene_terrain.xml):
     the flat patch at the origin plus height-field/boxes in the scene —
     verifies the cascade runs against the terrain world model."""
-    from bipedal_control_tpu.runtime.controller import BipedalController
+    from bipedal_nmpc.runtime.controller import BipedalController
 
     if not os.path.exists(MJCF_TERRAIN):
         pytest.skip("terrain scene unavailable")
@@ -220,8 +220,8 @@ def test_swing_planner_per_phase_terrain_heights():
     start/end at the supplied terrain heights, not at 0."""
     import jax.numpy as jnp
 
-    from bipedal_control_tpu.gait.mode_schedule import ModeSchedule
-    from bipedal_control_tpu.gait.swing import SwingConfig, plan_swing_table
+    from bipedal_nmpc.gait.mode_schedule import ModeSchedule
+    from bipedal_nmpc.gait.swing import SwingConfig, plan_swing_table
 
     cfg = SwingConfig(
         lift_off_velocity=0.05,

@@ -19,9 +19,9 @@ pytestmark = pytest.mark.skipif(not os.path.exists(MJCF), reason="G1 MJCF unavai
 
 def test_g1_stance_balance():
     pytest.importorskip("mujoco")
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.runtime.controller import BipedalController
-    from bipedal_control_tpu.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.runtime.controller import BipedalController
+    from bipedal_nmpc.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
 
     iface = make_interface_for("g1")
     sim = MujocoSimBackend(MJCF, list(iface.task.joint_names), MujocoSimConfig())
@@ -60,9 +60,9 @@ def test_g1_standing_trot():
     band.  The round-2 falling regression was the one-replan-period warm
     start misalignment fixed in sim/... solver warm_start_trajectories."""
     pytest.importorskip("mujoco")
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.runtime.controller import BipedalController
-    from bipedal_control_tpu.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.runtime.controller import BipedalController
+    from bipedal_nmpc.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
 
     iface = make_interface_for("g1")
     sim = MujocoSimBackend(MJCF, list(iface.task.joint_names), MujocoSimConfig())
@@ -109,10 +109,10 @@ def test_g1_walks_at_cmd_vel():
     Asserted: |v_avg - cmd| <= 30% of cmd (VERDICT r3 next-step #2).
     Open-loop reference analogue: TargetTrajectoriesPublisher.cpp:77-100."""
     pytest.importorskip("mujoco")
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.reference.target import CmdVelFollower
-    from bipedal_control_tpu.runtime.controller import BipedalController
-    from bipedal_control_tpu.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.reference.target import CmdVelFollower
+    from bipedal_nmpc.runtime.controller import BipedalController
+    from bipedal_nmpc.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
 
     iface = make_interface_for("g1")
     sim = MujocoSimBackend(MJCF, list(iface.task.joint_names), MujocoSimConfig())

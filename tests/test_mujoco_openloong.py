@@ -25,9 +25,9 @@ pytestmark = pytest.mark.skipif(not os.path.exists(MJCF), reason="OpenLoong MJCF
 
 def test_openloong_stance_balance():
     pytest.importorskip("mujoco")
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.runtime.controller import BipedalController, JointCommand
-    from bipedal_control_tpu.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.runtime.controller import BipedalController, JointCommand
+    from bipedal_nmpc.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
 
     iface = make_interface_for("openloong")
     sim = MujocoSimBackend(MJCF, list(iface.task.joint_names), MujocoSimConfig())
@@ -79,9 +79,9 @@ def test_openloong_fast_trot_steps_in_place():
     test runs 6 s in that configuration.  The reference never ran
     OpenLoong stepping at all."""
     pytest.importorskip("mujoco")
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.runtime.controller import BipedalController
-    from bipedal_control_tpu.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.runtime.controller import BipedalController
+    from bipedal_nmpc.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
 
     iface = make_interface_for("openloong")
     assert "fast_trot" in iface.task.gait_library
@@ -101,7 +101,7 @@ def test_openloong_fast_trot_steps_in_place():
     ctrl.set_gait(iface.task.gait_library["fast_trot"], start_time=sim.time + 0.6)
     control_dt = 1.0 / 500.0
     substeps = max(1, int(round(control_dt / sim.timestep)))
-    from bipedal_control_tpu.reference.target import cmd_vel_to_target_trajectories
+    from bipedal_nmpc.reference.target import cmd_vel_to_target_trajectories
 
     next_retarget = 0.8
     for _ in range(int(6.0 / control_dt)):
@@ -162,10 +162,10 @@ def test_openloong_walks_at_cmd_vel():
     unit-tested in test_capture.py) for robots where the trade differs.
     The reference never stepped OpenLoong."""
     pytest.importorskip("mujoco")
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.reference.target import CmdVelFollower
-    from bipedal_control_tpu.runtime.controller import BipedalController
-    from bipedal_control_tpu.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.reference.target import CmdVelFollower
+    from bipedal_nmpc.runtime.controller import BipedalController
+    from bipedal_nmpc.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
 
     iface = make_interface_for("openloong")
     sim = MujocoSimBackend(MJCF, list(iface.task.joint_names), MujocoSimConfig())

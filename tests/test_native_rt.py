@@ -10,7 +10,7 @@ pytestmark = pytest.mark.skipif(shutil.which("g++") is None, reason="g++ unavail
 
 
 def test_policy_slot_snapshot_consistency():
-    from bipedal_control_tpu.runtime.native_rt import PolicySlot
+    from bipedal_nmpc.runtime.native_rt import PolicySlot
 
     n = 256
     slot = PolicySlot(n)
@@ -48,7 +48,7 @@ def test_policy_slot_snapshot_consistency():
 
 
 def test_rt_loop_rate_and_stats():
-    from bipedal_control_tpu.runtime.native_rt import RtLoop
+    from bipedal_nmpc.runtime.native_rt import RtLoop
 
     ticks = []
 

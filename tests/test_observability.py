@@ -17,8 +17,8 @@ pytestmark = pytest.mark.skipif(
 def h1_solution():
     import dataclasses
 
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.solver import build_refs, initial_trajectory, sqp_solve
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.solver import build_refs, initial_trajectory, sqp_solve
     import jax
 
     iface = make_interface_for("h1")
@@ -42,7 +42,7 @@ def h1_solution():
 
 
 def test_constraint_observer(h1_solution):
-    from bipedal_control_tpu.runtime.observability import observe_constraints
+    from bipedal_nmpc.runtime.observability import observe_constraints
 
     iface, sol, refs = h1_solution
     obs = observe_constraints(iface.model, iface.info, iface.settings, sol, refs)
@@ -56,9 +56,9 @@ def test_constraint_observer(h1_solution):
 
 
 def test_tracking_error_and_report(h1_solution):
-    from bipedal_control_tpu.model.centroidal import rbd_state_from_centroidal
-    from bipedal_control_tpu.ocp.problem import weight_compensating_input
-    from bipedal_control_tpu.runtime.observability import solve_report, tracking_error
+    from bipedal_nmpc.model.centroidal import rbd_state_from_centroidal
+    from bipedal_nmpc.ocp.problem import weight_compensating_input
+    from bipedal_nmpc.runtime.observability import solve_report, tracking_error
 
     iface, sol, refs = h1_solution
     x_des = sol.x_traj[0]
@@ -72,10 +72,10 @@ def test_tracking_error_and_report(h1_solution):
 
 
 def test_batched_wbc(h1_solution):
-    from bipedal_control_tpu.model.centroidal import rbd_state_from_centroidal
-    from bipedal_control_tpu.ocp.problem import weight_compensating_input
-    from bipedal_control_tpu.runtime.controller import wbc_config_from_task
-    from bipedal_control_tpu.wbc.weighted_wbc import wbc_update_batch
+    from bipedal_nmpc.model.centroidal import rbd_state_from_centroidal
+    from bipedal_nmpc.ocp.problem import weight_compensating_input
+    from bipedal_nmpc.runtime.controller import wbc_config_from_task
+    from bipedal_nmpc.wbc.weighted_wbc import wbc_update_batch
 
     iface, sol, refs = h1_solution
     cfg = wbc_config_from_task(iface.task)

@@ -10,7 +10,7 @@ BipedalRobotDummyNode.cpp:44-90.
 import numpy as np
 import pytest
 
-from bipedal_control_tpu.reference.ocs2_import import (
+from bipedal_nmpc.reference.ocs2_import import (
     RecordedTrajectory,
     compare_trajectories,
     load_recorded_trajectory,
@@ -87,11 +87,11 @@ def test_compare_solve_against_self_recording():
     This is the exact pipeline an external OCS2 recording would follow."""
     import jax.numpy as jnp
 
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.reference.ocs2_import import compare_solve_to_recording
-    from bipedal_control_tpu.solver.sqp import build_refs, initial_trajectory, sqp_solve
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.reference.ocs2_import import compare_solve_to_recording
+    from bipedal_nmpc.solver.sqp import build_refs, initial_trajectory, sqp_solve
 
-    iface = make_interface_for("h1")
+    iface = make_interface_for("g1")
     rm = iface.make_reference_manager()
     rm.set_gait(iface.task.gait_library["trot"], start_time=0.1)
     frozen = rm.freeze(0.0)

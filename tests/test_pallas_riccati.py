@@ -1,17 +1,23 @@
-"""Whole-backward-sweep Pallas Riccati kernel vs the XLA stage-KKT scan.
+"""Whole-sweep Pallas Riccati kernel (Triton route) vs the XLA stage-KKT scan.
 
-The kernel (ops/pallas_riccati.py) must reproduce solver/riccati.py
+The kernel (ops/riccati_triton.py) must reproduce solver/riccati.py
 bit-tolerantly on constrained problems with masked rows, both through the
 scenario `vmap` (the production batched path, via custom_vmap) and unbatched.
-Runs in Pallas interpret mode on CPU.
+Runs in Pallas interpret mode on CPU, in float64; the `gpu`-marked case runs
+the kernel as compiled for the card.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from bipedal_control_tpu.solver.riccati import solve_lqr, solve_lqr_pallas
+from bipedal_nmpc.solver.riccati import solve_lqr, solve_lqr_triton
 
 from test_riccati import _random_problem
+
+solve_lqr_interp = functools.partial(solve_lqr_triton, interpret=True)
 
 
 def _batched_problem(seed, B, **kw):
@@ -33,7 +39,7 @@ def test_pallas_matches_xla_batched():
     dx0 = jnp.asarray(rng.normal(size=(B, nx)) * 0.1)
 
     ref = jax.vmap(solve_lqr)(nodes, masks, dx0)
-    out = jax.vmap(solve_lqr_pallas)(nodes, masks, dx0)
+    out = jax.vmap(solve_lqr_interp)(nodes, masks, dx0)
 
     np.testing.assert_allclose(np.asarray(out.K), np.asarray(ref.K), atol=1e-9)
     np.testing.assert_allclose(np.asarray(out.k), np.asarray(ref.k), atol=1e-9)
@@ -45,51 +51,48 @@ def test_pallas_matches_xla_batched():
 
 
 def test_pallas_unbatched_entry():
+    """Unbatched call at widths that need every padding path: state 17 -> 32,
+    input 20 -> 32, constraint rows 5 -> 16, KKT rows 25 -> 64."""
     rng = np.random.default_rng(21)
-    nodes, masks = _random_problem(rng, N=4, nx=4, nu=3, ne=2, constrained=True)
-    dx0 = jnp.asarray(rng.normal(size=4) * 0.1)
+    nodes, masks = _random_problem(rng, N=4, nx=17, nu=20, ne=5, constrained=True)
+    dx0 = jnp.asarray(rng.normal(size=17) * 0.1)
     ref = solve_lqr(nodes, masks, dx0)
-    out = solve_lqr_pallas(nodes, masks, dx0)
+    out = solve_lqr_interp(nodes, masks, dx0)
     np.testing.assert_allclose(np.asarray(out.du), np.asarray(ref.du), atol=1e-9)
     np.testing.assert_allclose(np.asarray(out.dx), np.asarray(ref.dx), atol=1e-9)
+    np.testing.assert_allclose(np.asarray(out.K), np.asarray(ref.K), atol=1e-9)
 
 
 def test_pallas_in_sqp_jit():
-    """settings.riccati='pallas' composes with jit + the scenario vmap."""
-    import dataclasses
-
-    from bipedal_control_tpu.solver.riccati import _solve_lqr_pallas_batched
+    """The batched entry composes with jit, and broadcasts unbatched inputs."""
+    from bipedal_nmpc.solver.riccati import _solve_lqr_triton_batched
 
     B = 2
     nodes, masks = _batched_problem(31, B, N=4, nx=4, nu=3, ne=2, constrained=True)
     dx0 = jnp.zeros((B, 4))
-    out = jax.jit(_solve_lqr_pallas_batched)(nodes, masks, dx0)
+    out = jax.jit(functools.partial(_solve_lqr_triton_batched, interpret=True))(nodes, masks, dx0)
     ref = jax.jit(jax.vmap(solve_lqr))(nodes, masks, dx0)
     np.testing.assert_allclose(np.asarray(out.du), np.asarray(ref.du), atol=1e-9)
+    # shared (unbatched) masks and dx0 under vmap
+    out2 = jax.vmap(solve_lqr_interp, in_axes=(0, None, None))(nodes, masks[0], dx0[0])
+    ref2 = jax.vmap(solve_lqr, in_axes=(0, None, None))(nodes, masks[0], dx0[0])
+    np.testing.assert_allclose(np.asarray(out2.du), np.asarray(ref2.du), atol=1e-9)
 
 
-def test_pallas_backend_in_full_sqp():
-    """riccati='pallas' through the full batched SQP (jit + scenario vmap)
-    matches the sequential backend on a short-horizon H1 problem."""
+def test_pallas_backend_in_full_sqp(monkeypatch):
+    """riccati='triton' through the full batched SQP (jit + scenario vmap)
+    matches the sequential backend on a short-horizon G1 problem.  On the
+    CPU the kernel runs interpreted, which select_backends never chooses:
+    the test swaps both in."""
     import dataclasses
-    import os
 
-    import pytest
+    import bipedal_nmpc.solver.riccati as riccati_mod
+    import bipedal_nmpc.solver.sqp as sqp_mod
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.parallel.batch_solver import batched_sqp_solve
+    from bipedal_nmpc.solver import build_refs, initial_trajectory
 
-    from conftest import REFERENCE_ASSETS
-
-    task = os.path.join(
-        REFERENCE_ASSETS,
-        "bipedal_robot_example/unitree_h1/h1_ocs2_config/config/task/task.info",
-    )
-    if not os.path.exists(task):
-        pytest.skip("reference assets unavailable")
-
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.parallel.batch_solver import batched_sqp_solve
-    from bipedal_control_tpu.solver import build_refs, initial_trajectory
-
-    iface = make_interface_for("h1")
+    iface = make_interface_for("g1")
     base = dataclasses.replace(iface.settings, horizon=0.09, sqp_iterations=1)
     rm = iface.make_reference_manager()
     frozen = rm.freeze(0.0)
@@ -102,21 +105,41 @@ def test_pallas_backend_in_full_sqp():
     tile = lambda a: jnp.broadcast_to(a[None], (B,) + a.shape)
     args = (jax.tree.map(tile, refs), tile(t_nodes), tile(x0), tile(xs), tile(us))
 
-    outs = {}
-    for backend in ("sequential", "pallas"):
+    outs = {"sequential": None, "triton": None}
+    for backend in outs:
         st = dataclasses.replace(base, riccati=backend)
+        if backend == "triton":
+            monkeypatch.setattr(riccati_mod, "solve_lqr_triton", solve_lqr_interp)
+            monkeypatch.setattr(sqp_mod, "select_backends", lambda s: s)
         outs[backend] = jax.jit(
             lambda *a, st=st: batched_sqp_solve(
                 iface.model, iface.info, st, iface.Q, iface.R, *a
             )
         )(*args)
-    np.testing.assert_allclose(
-        np.asarray(outs["pallas"].x_traj),
-        np.asarray(outs["sequential"].x_traj),
-        atol=1e-8,
-    )
-    np.testing.assert_allclose(
-        np.asarray(outs["pallas"].u_traj),
-        np.asarray(outs["sequential"].u_traj),
-        atol=1e-8,
-    )
+    for field in ("x_traj", "u_traj", "K"):
+        np.testing.assert_allclose(
+            np.asarray(getattr(outs["triton"], field)),
+            np.asarray(getattr(outs["sequential"], field)),
+            atol=1e-8,
+        )
+
+
+@pytest.mark.gpu
+def test_kernel_on_card_matches_xla(gpu_device):
+    """The kernel as compiled for the card, at G1 widths (state/input 24,
+    16 constraint rows, 67 stages), against the XLA scan on the same card.
+    Both run in float32 at full matmul precision; the tolerance is the
+    float32 stage-KKT amplification bound of chip_smoke.py (RTOL_U)."""
+    nodes, masks = _batched_problem(5, 4, N=67, nx=24, nu=24, ne=16, constrained=True)
+    nodes, masks = jax.device_get((nodes, masks))
+    # the production dtype: float32 throughout, whatever conftest's x64 says
+    with jax.enable_x64(False), jax.default_matmul_precision("float32"):
+        f32 = lambda t: jax.device_put(jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), t), gpu_device)
+        nodes, masks = f32(nodes), f32(masks)
+        dx0 = jax.device_put(jnp.zeros((4, 24), jnp.float32), gpu_device)
+        ref = jax.jit(jax.vmap(solve_lqr))(nodes, masks, dx0)
+        out = jax.jit(jax.vmap(solve_lqr_triton))(nodes, masks, dx0)
+    for field in ("du", "dx", "k"):
+        a, b = np.asarray(getattr(out, field)), np.asarray(getattr(ref, field))
+        assert np.all(np.isfinite(a))
+        assert np.max(np.abs(a - b)) <= 1e-3 * np.max(np.abs(b)), field

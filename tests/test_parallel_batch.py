@@ -1,17 +1,7 @@
 """Batched, mesh-sharded solving on the virtual 8-device CPU mesh."""
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
-
-from conftest import REFERENCE_ASSETS
-
-pytestmark = pytest.mark.skipif(
-    not os.path.exists(os.path.join(REFERENCE_ASSETS, "bipedal_robot_example")),
-    reason="reference assets unavailable",
-)
 
 
 def test_batched_sharded_solve_tiny():
@@ -19,11 +9,11 @@ def test_batched_sharded_solve_tiny():
     the unsharded single-scenario solve."""
     import dataclasses
 
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.parallel import make_batched_solver, make_mesh, shard_batch
-    from bipedal_control_tpu.solver import build_refs, initial_trajectory, sqp_solve
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.parallel import make_batched_solver, make_mesh, shard_batch
+    from bipedal_nmpc.solver import build_refs, initial_trajectory, sqp_solve
 
-    iface = make_interface_for("h1")
+    iface = make_interface_for("g1")
     settings = dataclasses.replace(iface.settings, dt=0.125, sqp_iterations=1)
     rm = iface.make_reference_manager()
     rm.num_intervals = settings.num_intervals

@@ -2,8 +2,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from bipedal_control_tpu.solver.parallel_riccati import solve_lqr_parallel
-from bipedal_control_tpu.solver.riccati import solve_lqr
+from bipedal_nmpc.solver.parallel_riccati import solve_lqr_parallel
+from bipedal_nmpc.solver.riccati import solve_lqr
 
 from test_riccati import _random_problem
 
@@ -31,7 +31,7 @@ def test_parallel_matches_sequential_constrained():
 
 
 def test_sqrt_parallel_matches_sequential_unconstrained():
-    from bipedal_control_tpu.solver.parallel_riccati import solve_lqr_parallel_sqrt
+    from bipedal_nmpc.solver.parallel_riccati import solve_lqr_parallel_sqrt
 
     rng = np.random.default_rng(9)
     nodes, masks = _random_problem(rng, N=12, constrained=False)
@@ -44,7 +44,7 @@ def test_sqrt_parallel_matches_sequential_unconstrained():
 
 
 def test_sqrt_parallel_matches_sequential_constrained():
-    from bipedal_control_tpu.solver.parallel_riccati import solve_lqr_parallel_sqrt
+    from bipedal_nmpc.solver.parallel_riccati import solve_lqr_parallel_sqrt
 
     rng = np.random.default_rng(10)
     nodes, masks = _random_problem(rng, N=10, constrained=True)
@@ -61,7 +61,7 @@ def test_sqrt_parallel_f32_stable():
     dense scan NaNs/stalls here — module docstring)."""
     import jax
 
-    from bipedal_control_tpu.solver.parallel_riccati import solve_lqr_parallel_sqrt
+    from bipedal_nmpc.solver.parallel_riccati import solve_lqr_parallel_sqrt
 
     rng = np.random.default_rng(11)
     nodes, masks = _random_problem(rng, N=64, constrained=True)
@@ -92,8 +92,8 @@ def test_sqp_with_parallel_sqrt_backend():
         pytest.skip("reference assets unavailable")
     import jax
 
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.solver import build_refs, initial_trajectory, sqp_solve
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.solver import build_refs, initial_trajectory, sqp_solve
 
     iface = make_interface_for("h1")
     rm = iface.make_reference_manager()

@@ -1,15 +1,15 @@
 """Matmul-precision policy (utils/precision.py).
 
-On TPU an f32 dot defaults to a single bf16 MXU pass; the framework's
-production entry points trace under full-f32 precision instead (measured:
-doubles on-device randomized-walking survival and halves the solve defect
-at zero throughput cost — SCENARIOS_r04.json / BENCH notes).  These tests
+A float32 dot at default precision may run in reduced precision on an
+accelerator (TF32 on a GPU); the framework's production entry points trace
+under full-f32 precision instead, because the stage-KKT and contact algebra
+is ill-conditioned.  These tests
 pin the policy machinery platform-independently by inspecting jaxprs.
 """
 import jax
 import jax.numpy as jnp
 
-from bipedal_control_tpu.utils import precision
+from bipedal_nmpc.utils import precision
 
 
 def _dot_precisions(fn, *args):
@@ -39,7 +39,7 @@ def test_context_sets_highest_precision_on_dots(monkeypatch):
         with precision.default_matmul_precision():
             return a @ a
 
-    # default-precision dots carry precision=None (XLA decides: bf16 on TPU)
+    # default-precision dots carry precision=None (XLA decides; TF32 on a GPU)
     assert _dot_precisions(plain, a) == [None]
     (p,) = _dot_precisions(wrapped, a)
     assert p == (jax.lax.Precision.HIGHEST, jax.lax.Precision.HIGHEST)
@@ -48,10 +48,10 @@ def test_context_sets_highest_precision_on_dots(monkeypatch):
 def test_mpc_replan_traces_under_policy(monkeypatch):
     """The fused replan's dots must carry the policy precision, not None."""
     monkeypatch.delenv("BIPEDAL_MATMUL_PRECISION", raising=False)
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.runtime.mpc_runner import MpcRunner
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.runtime.mpc_runner import MpcRunner
 
-    iface = make_interface_for("h1")
+    iface = make_interface_for("g1")
     runner = MpcRunner(iface)
     frozen = runner.rm.freeze(0.0)
     x0 = jnp.asarray(iface.initial_state)

@@ -2,8 +2,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from bipedal_control_tpu.ocp.problem import LinearizedNode
-from bipedal_control_tpu.solver.riccati import solve_lqr
+from bipedal_nmpc.ocp.problem import LinearizedNode
+from bipedal_nmpc.solver.riccati import solve_lqr
 
 
 def _random_problem(rng, N=6, nx=4, nu=3, ne=2, constrained=True):
@@ -91,9 +91,18 @@ def _dense_solution(nodes, masks, dx0):
             row[xi(k)] += A[k][i]
             row[ui(k)] += B[k][i]
             cons.append((row, -c[k][i]))
+        kept = np.zeros((0, nx + nu))
         for j in range(C.shape[1]):  # equality constraints (active rows only)
             if masks[k][j] == 0:
                 continue
+            # drop a row that depends on the rows kept so far (two contact
+            # points on one rigid foot give dependent velocity rows); the
+            # solver's dual regularization copes with them, a dense solve
+            # cannot
+            cand = np.vstack([kept, np.concatenate([C[k][j], D[k][j]])])
+            if np.linalg.matrix_rank(cand) == kept.shape[0]:
+                continue
+            kept = cand
             row = np.zeros(nvar)
             row[xi(k)] = C[k][j]
             row[ui(k)] = D[k][j]

@@ -3,15 +3,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from bipedal_control_tpu.model.kinematics import forward_kinematics, stacked_point_jacobians
-from bipedal_control_tpu.model.second_order import (
+from bipedal_nmpc.model.kinematics import forward_kinematics, stacked_point_jacobians
+from bipedal_nmpc.model.second_order import (
     cmm_derivative,
     point_jacobian_derivatives,
     velocity_fields,
     _static_masks,
 )
-from bipedal_control_tpu.model.centroidal import centroidal_momentum_matrix
-from bipedal_control_tpu.model.kinematics import frame_position
+from bipedal_nmpc.model.centroidal import centroidal_momentum_matrix
+from bipedal_nmpc.model.kinematics import frame_position
 
 
 def _rand_q(model, rng):
@@ -58,8 +58,8 @@ def test_cmm_derivative_fast_matches_bodywise(h1_model, rng):
     """Subtree-aggregate dA/dq == body-wise oracle (hot path vs reference)."""
     import jax.numpy as jnp
 
-    from bipedal_control_tpu.model.kinematics import forward_kinematics
-    from bipedal_control_tpu.model.second_order import (
+    from bipedal_nmpc.model.kinematics import forward_kinematics
+    from bipedal_nmpc.model.second_order import (
         cmm_derivative,
         cmm_derivative_fast,
         velocity_fields,
@@ -82,7 +82,7 @@ def test_cmm_derivative_fast_matches_bodywise(h1_model, rng):
 
 def test_cmm_v_derivative_matches_ad(h1_model, rng):
     """Directional d/dq (A(q) v) == jacfwd oracle contracted with v."""
-    from bipedal_control_tpu.model.second_order import cmm_v_derivative
+    from bipedal_nmpc.model.second_order import cmm_v_derivative
 
     model = h1_model
     q = _rand_q(model, rng)

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 
 from conftest import REFERENCE_ASSETS
-from bipedal_control_tpu.solver import sqp_solve
+from bipedal_nmpc.solver import sqp_solve
 
 H1_TASK = os.path.join(
     REFERENCE_ASSETS, "bipedal_robot_example/unitree_h1/h1_ocs2_config/config/task/task.info"
@@ -19,7 +19,7 @@ pytestmark = pytest.mark.skipif(
 
 @pytest.fixture(scope="module")
 def h1_iface():
-    from bipedal_control_tpu.interface import make_interface_for
+    from bipedal_nmpc.interface import make_interface_for
 
     return make_interface_for("h1")
 
@@ -29,7 +29,7 @@ def _solve(iface, rm, t0, x_init, iters=5):
     (shares a single compiled program across every test)."""
     import dataclasses
 
-    from bipedal_control_tpu.solver import build_refs, initial_trajectory
+    from bipedal_nmpc.solver import build_refs, initial_trajectory
 
     settings = dataclasses.replace(iface.settings, sqp_iterations=1)
     frozen = rm.freeze(t0)
@@ -97,7 +97,7 @@ def test_h1_trot_solve(h1_iface):
     assert flags.min() == 0.0 and flags.max() == 1.0
     # swing feet z-velocity follows the spline reference (via constraint
     # residual already covered by eq_norm); check swing feet get airborne
-    from bipedal_control_tpu.model.centroidal import contact_positions
+    from bipedal_nmpc.model.centroidal import contact_positions
 
     z_min = []
     z_max_swing = 0.0
@@ -119,7 +119,7 @@ def test_h1_warm_start_improves(h1_iface):
     keeps residuals small (real-time iteration viability)."""
     import dataclasses
 
-    from bipedal_control_tpu.solver import build_refs, sqp_solve, warm_start_from_solution
+    from bipedal_nmpc.solver import build_refs, sqp_solve, warm_start_from_solution
 
     iface = h1_iface
     rm = iface.make_reference_manager()
@@ -145,8 +145,8 @@ def test_g1_trot_solve():
     """G1 (our authored config; BASELINE config 2): gait-switching solve."""
     import dataclasses
 
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.solver import build_refs, initial_trajectory, sqp_solve
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.solver import build_refs, initial_trajectory, sqp_solve
 
     iface = make_interface_for("g1")
     settings = dataclasses.replace(iface.settings, sqp_iterations=1)

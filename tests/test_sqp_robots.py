@@ -1,32 +1,37 @@
-"""Cross-robot SQP solves: Hunter and OpenLoong trot OCPs.
+"""Cross-robot SQP solves: G1, Hunter and OpenLoong trot OCPs.
 
 The reference supports these robots purely through config
 (bipedal_robot_example/hunter, openloong_description — SURVEY.md §2 items
 32-33); the masked static-shape OCP must absorb their different contact
-geometries (Hunter's f1/f2 small-foot pair, OpenLoong's 6-joint legs) with no
-code changes.  Short horizon keeps CPU compile time bounded.
+geometries (Hunter's f1/f2 small-foot pair, OpenLoong's 6-joint legs, G1's
+toe/heel frames on the ankle-roll links) with no code changes.  Short
+horizon keeps CPU compile time bounded.  G1 runs from the repository, in
+float32 (the card's dtype: in float64 its stage KKT's 1e-9 dual
+regularization leaves the toe/heel rank deficiency nearly unregularized and
+the iterates stall near defect 2e-3, an open item); Hunter and OpenLoong
+need $BIPEDAL_ASSETS.
 """
 import dataclasses
-import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from conftest import REFERENCE_ASSETS
 
-pytestmark = pytest.mark.skipif(
-    not os.path.exists(os.path.join(REFERENCE_ASSETS, "bipedal_robot_example")),
-    reason="reference assets unavailable",
-)
-
-
-@pytest.mark.parametrize("robot", ["hunter", "openloong"])
+@pytest.mark.parametrize("robot", ["g1", "hunter", "openloong"])
 def test_sqp_trot_converges(robot):
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.runtime.mpc_runner import MpcRunner
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.robots import get_assets
+    from bipedal_nmpc.runtime.mpc_runner import MpcRunner
 
-    iface = make_interface_for(robot)
+    if get_assets(robot).missing_files():
+        pytest.skip(f"{robot} assets unavailable (set $BIPEDAL_ASSETS)")
+    with jax.enable_x64(robot != "g1"):
+        _trot_converges(robot, make_interface_for(robot), MpcRunner)
+
+
+def _trot_converges(robot, iface, MpcRunner):
     iface = dataclasses.replace(
         iface, settings=dataclasses.replace(iface.settings, horizon=0.3)
     )

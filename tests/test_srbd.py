@@ -12,14 +12,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bipedal_control_tpu.model.centroidal import (
+from bipedal_nmpc.model.centroidal import (
     centroidal_momentum_matrix,
     centroidal_momentum_matrix_info,
     centroidal_flow_map,
     momentum_coordinates,
 )
-from bipedal_control_tpu.ocp.linearize import linearize_node_structured
-from bipedal_control_tpu.ocp.problem import (
+from bipedal_nmpc.ocp.linearize import linearize_node_structured
+from bipedal_nmpc.ocp.problem import (
     NodeRefs,
     OcpSettings,
     linearize_node,
@@ -104,8 +104,8 @@ def test_srbd_structured_matches_ad(h1_model, srbd_info, rng, flags):
 def test_srbd_rti_solve_converges():
     """Warm-started 1-iteration solves on H1-SRBD stance drive the defect down
     (same RTI usage as the full model, with the real default pose)."""
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.solver import build_refs, initial_trajectory, sqp_solve
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.solver import build_refs, initial_trajectory, sqp_solve
 
     try:
         iface = make_interface_for("h1")

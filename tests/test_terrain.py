@@ -26,7 +26,7 @@ pytestmark = pytest.mark.skipif(
 
 
 def test_terrain_map_bilinear():
-    from bipedal_control_tpu.sim.terrain import TerrainMap
+    from bipedal_nmpc.sim.terrain import TerrainMap
 
     z = np.zeros((3, 3))
     z[2, :] = 1.0  # ramp in x
@@ -42,7 +42,7 @@ def test_terrain_from_mujoco_raycast(tmp_path):
     reads 0.12, the plane 0, edges interpolate; the robot body (a free
     sphere) is teleported out and never shadows the rays."""
     mujoco = pytest.importorskip("mujoco")
-    from bipedal_control_tpu.sim.terrain import terrain_from_mujoco
+    from bipedal_nmpc.sim.terrain import terrain_from_mujoco
 
     xml = """<mujoco>
       <worldbody>
@@ -62,8 +62,8 @@ def test_reference_manager_terrain_feed():
     """freeze() with a terrain_fn: stance swing splines sit AT terrain
     height, swing splines land at the touchdown foothold's height, and the
     target z is re-based to comHeight above local ground."""
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.reference.target import TargetTrajectories
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.reference.target import TargetTrajectories
 
     iface = make_interface_for("h1")
     rm = iface.make_reference_manager()
@@ -105,8 +105,8 @@ def test_reference_manager_terrain_feed():
 
 
 def _walk(iface, sim, cmd_vx, duration, rm=None):
-    from bipedal_control_tpu.reference.target import CmdVelFollower
-    from bipedal_control_tpu.runtime.controller import BipedalController
+    from bipedal_nmpc.reference.target import CmdVelFollower
+    from bipedal_nmpc.runtime.controller import BipedalController
 
     ctrl = BipedalController(iface, reference_manager=rm)
     ctrl.starting(sim.time, sim.rbd_state())
@@ -138,9 +138,9 @@ def test_h1_walks_terrain_scene():
     walked corridor x in [-1.6, -0.2] at y=0 is the scene's flat patch —
     the 0.2 m box platform starts at x=+1.0)."""
     pytest.importorskip("mujoco")
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
-    from bipedal_control_tpu.sim.terrain import terrain_from_mujoco
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
+    from bipedal_nmpc.sim.terrain import terrain_from_mujoco
 
     iface = make_interface_for("h1")
     sim = MujocoSimBackend(
@@ -178,9 +178,9 @@ def test_h1_walks_up_step(tmp_path):
     future lever, not swing-apex height (already over the max surface
     here — SwingConfig.apex_over_max_height)."""
     pytest.importorskip("mujoco")
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
-    from bipedal_control_tpu.sim.terrain import terrain_from_mujoco
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.sim.mujoco_backend import MujocoSimBackend, MujocoSimConfig
+    from bipedal_nmpc.sim.terrain import terrain_from_mujoco
 
     step_h = 0.04
     scene = tmp_path / "h1_step_scene.xml"
@@ -223,8 +223,8 @@ def test_swing_apex_over_max_height():
     swingHeight above the HIGHER surface (the reference's min() formula —
     faithful on flat ground where it was only ever run — leaves only
     swingHeight - dh of clearance and the toe strikes the riser edge)."""
-    from bipedal_control_tpu.gait.mode_schedule import ModeSchedule
-    from bipedal_control_tpu.gait.swing import SwingConfig, plan_swing_table
+    from bipedal_nmpc.gait.mode_schedule import ModeSchedule
+    from bipedal_nmpc.gait.swing import SwingConfig, plan_swing_table
 
     sched = ModeSchedule([0.3, 0.65], [3, 2, 3])  # left swings in RF
     lift = np.zeros((4, 3))

@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from bipedal_control_tpu.runtime.visualizer import (
+from bipedal_nmpc.runtime.visualizer import (
     Visualizer,
     _convex_hull_2d,
     center_of_pressure,

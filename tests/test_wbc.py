@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bipedal_control_tpu.wbc import WbcTaskConfig, solve_qp, wbc_update
+from bipedal_nmpc.wbc import WbcTaskConfig, solve_qp, wbc_update
 
 
 def test_qp_kkt_on_random_problem():
@@ -48,8 +48,8 @@ def h1_wbc_setup(h1_model, h1_info):
 
     if not os.path.exists(os.path.join(REFERENCE_ASSETS, "bipedal_robot_example")):
         pytest.skip("assets unavailable")
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.model.centroidal import rbd_state_from_centroidal
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.model.centroidal import rbd_state_from_centroidal
 
     iface = make_interface_for("h1")
     cfg = WbcTaskConfig(
@@ -65,7 +65,7 @@ def h1_wbc_setup(h1_model, h1_info):
         weight_contact_force=iface.task.wbc.weight_contact_force,
     )
     x0 = jnp.asarray(iface.initial_state)
-    from bipedal_control_tpu.ocp.problem import weight_compensating_input
+    from bipedal_nmpc.ocp.problem import weight_compensating_input
 
     u0 = weight_compensating_input(iface.info, jnp.ones(4), iface.info.input_dim)
     rbd = rbd_state_from_centroidal(iface.model, iface.info, x0, u0)
@@ -90,7 +90,7 @@ def test_wbc_stance_equilibrium(h1_wbc_setup):
     assert np.all(np.isfinite(vdot))
     np.testing.assert_allclose(forces[:, 2].sum(), iface.info.robot_mass * 9.81, rtol=0.05)
     # EoM residual: M vdot + nle - Jc^T F - S^T tau ~ 0
-    from bipedal_control_tpu.wbc.tasks import compute_wbc_kinematics
+    from bipedal_nmpc.wbc.tasks import compute_wbc_kinematics
 
     kin = compute_wbc_kinematics(iface.model, iface.info, x0, u0, rbd)
     Jc = np.asarray(kin.Jc).reshape(12, nv)
@@ -110,7 +110,7 @@ def test_wbc_swing_tracks_accel(h1_wbc_setup):
     """With the left-foot pair swinging, the swing-foot rows should track the
     PD acceleration target and the swing forces must be ~0."""
     iface, cfg, x0, u0, rbd = h1_wbc_setup
-    from bipedal_control_tpu.ocp.problem import weight_compensating_input
+    from bipedal_nmpc.ocp.problem import weight_compensating_input
 
     flags = jnp.asarray([0.0, 0.0, 1.0, 1.0])  # RF mode: left pair swings
     u_rf = weight_compensating_input(iface.info, flags, iface.info.input_dim)

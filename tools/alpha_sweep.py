@@ -4,7 +4,7 @@
 Measures whether a single-candidate linesearch (alphas=(1.0,)) is as safe as
 the two-candidate default across the situations where a fixed step could
 misbehave: cold start, gait switch mid-run, state disturbance, and stale
-observations.  Writes SWEEP_ALPHAS_r{N}.json at the repo root.
+observations.  Writes chiprun_out/alpha_sweep.json.
 
 Run: JAX_PLATFORMS=cpu python tools/alpha_sweep.py
 """
@@ -22,8 +22,8 @@ def run_sweep(alphas):
     import jax
     import jax.numpy as jnp
 
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.runtime.mpc_runner import MpcRunner
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.runtime.mpc_runner import MpcRunner
 
     iface = make_interface_for("h1")
     settings = dataclasses.replace(
@@ -56,7 +56,7 @@ def run_sweep(alphas):
         defects.append(float(sol.defect_norm))
         steps.append(float(sol.step_size))
         # follow the plan (no plant): next observation = plan at t+dt
-        from bipedal_control_tpu.runtime.mrt import evaluate_policy
+        from bipedal_nmpc.runtime.mrt import evaluate_policy
 
         x = np.asarray(evaluate_policy(sol, t + 0.02, jnp.asarray(x)).x_star)
     out["gait_switch"] = {
@@ -78,7 +78,7 @@ def run_sweep(alphas):
             x[8] -= 0.05  # base drop
         sol = mpc.advance(t, jnp.asarray(x))
         defects.append(float(sol.defect_norm))
-        from bipedal_control_tpu.runtime.mrt import evaluate_policy
+        from bipedal_nmpc.runtime.mrt import evaluate_policy
 
         x = np.asarray(evaluate_policy(sol, t + 0.02, jnp.asarray(x)).x_star)
     out["disturbance"] = {
@@ -95,7 +95,7 @@ def run_sweep(alphas):
         t = 0.02 * k
         sol = mpc.advance(t, jnp.asarray(x_hist[0]))  # 40 ms stale
         defects.append(float(sol.defect_norm))
-        from bipedal_control_tpu.runtime.mrt import evaluate_policy
+        from bipedal_nmpc.runtime.mrt import evaluate_policy
 
         x_new = np.asarray(evaluate_policy(sol, t + 0.02, jnp.asarray(x_hist[-1])).x_star)
         x_hist = x_hist[1:] + [x_new]
@@ -107,10 +107,6 @@ def run_sweep(alphas):
 
 
 def main():
-    import jax
-
-    if os.environ.get("JAX_PLATFORMS"):
-        jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
     results = {}
     for name, alphas in [("two", (1.0, 0.5)), ("one", (1.0,))]:
         results[name] = run_sweep(alphas)
@@ -125,7 +121,8 @@ def main():
         if not (a < max(2.0 * b, 5e-3)):
             ok = False
     results["equivalent"] = ok
-    out_path = os.path.join(os.path.dirname(__file__), "..", "SWEEP_ALPHAS_r03.json")
+    out_path = os.path.join(os.path.dirname(__file__), "..", "chiprun_out", "alpha_sweep.json")
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
     with open(out_path, "w") as f:
         json.dump(results, f, indent=1)
     print("equivalent:", ok, "->", out_path)

@@ -1,11 +1,11 @@
-"""Domain-randomized batched-walking survival sweep -> SCENARIOS_r04.json.
+"""Domain-randomized batched-walking survival sweep -> a JSON table.
 
 BASELINE config 5's scenario axis is "domain-randomized scenarios"; round 3
 only exercised randomized batches in STANCE.  This tool runs the full
 on-device walking cascade (sim/batch_loop.py) over randomized initial
 states at several jitter magnitudes and records the survival fraction
 (upright AND progressed) per magnitude.  Runs on whatever jax backend is
-available (the driver's TPU chip for the committed artifact; CPU smoke:
+available (the GPU by default; CPU smoke:
   JAX_PLATFORMS=cpu SURV_BATCH=8 SURV_SCALES=1.0 python tools/scenario_survival.py).
 
 Survival definition (per scenario, cmd_vel 0.3 m/s for `duration` s of
@@ -22,10 +22,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-# TPU f32 matmuls default to single-pass bf16 on the MXU; this knob raises
-# them to true f32 (6-pass) for the f32-robustness sweeps.
+# float32 dots at default precision may run reduced (TF32 on a GPU); this
+# knob sets the precision for the f32-robustness sweeps.
 if os.environ.get("SURV_MATMUL_PRECISION"):
     jax.config.update("jax_default_matmul_precision", os.environ["SURV_MATMUL_PRECISION"])
 
@@ -34,8 +32,8 @@ import numpy as np  # noqa: E402
 
 
 def main():
-    from bipedal_control_tpu.interface import make_interface_for
-    from bipedal_control_tpu.sim.batch_loop import (
+    from bipedal_nmpc.interface import make_interface_for
+    from bipedal_nmpc.sim.batch_loop import (
         BatchLoopConfig,
         make_batched_closed_loop,
         randomized_initial_states,
@@ -50,7 +48,7 @@ def main():
     # optional KKT regularization override for f32-robustness sweeps
     if os.environ.get("SURV_REGS"):
         d_eps, h_reg = (float(v) for v in os.environ["SURV_REGS"].split(","))
-        from bipedal_control_tpu.solver import riccati as _ric
+        from bipedal_nmpc.solver import riccati as _ric
 
         _ric._regs = lambda dtype: (d_eps, h_reg)
         print(f"reg override: dual_eps={d_eps} huu_reg={h_reg}")
@@ -100,7 +98,7 @@ def main():
         )
     )
 
-    from bipedal_control_tpu.utils.precision import matmul_precision
+    from bipedal_nmpc.utils.precision import matmul_precision
 
     # survival thresholds scale with the robot: upright = z above ~82% of
     # the commanded CoM height (H1: 0.98 -> 0.80, matching the historical
@@ -153,7 +151,8 @@ def main():
         )
         print(json.dumps(out["per_scale"][-1]), flush=True)
 
-    path = os.environ.get("SURV_OUT", "SCENARIOS_r05.json")
+    path = os.environ.get("SURV_OUT", "chiprun_out/scenario_survival.json")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as fh:
         json.dump(out, fh, indent=1)
     print("wrote", path)
